@@ -1,7 +1,7 @@
 """Gradient paints demo: a card with a linear-gradient fill, a radial
 glow and gradient text, written to PNG.
 
-Exercises the TPU-native paint extension (renderer.LinearGradient /
+Exercises the paint extension (renderer.LinearGradient /
 RadialGradient — the reference's color cover is solid-only,
 shaders.wgsl:304-309).
 
@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
 
-from contrast_renderer_tpu.path import Path  # noqa: E402
-from contrast_renderer_tpu.renderer import (  # noqa: E402
+from contrast_renderer.path import Path  # noqa: E402
+from contrast_renderer.renderer import (  # noqa: E402
     Configuration,
     DrawCommand,
     LinearGradient,
@@ -26,7 +26,7 @@ from contrast_renderer_tpu.renderer import (  # noqa: E402
     Renderer,
     Shape,
 )
-from contrast_renderer_tpu.utils.png import write_png  # noqa: E402
+from contrast_renderer.utils.png import write_png  # noqa: E402
 
 
 def stencil_color(shape, transform, color):
@@ -82,8 +82,8 @@ def main():
     )
 
     if not args.no_text:
-        from contrast_renderer_tpu.assets import load_default_font
-        from contrast_renderer_tpu.text import (
+        from contrast_renderer.assets import load_default_font
+        from contrast_renderer.text import (
             Alignment,
             Layout,
             Orientation,
@@ -98,9 +98,9 @@ def main():
                 major_alignment=Alignment.CENTER,
                 minor_alignment=Alignment.CENTER,
             ),
-            "Contrast TPU",
+            "Contrast",
         )
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         center = ga2d.translate2d(np.array([cx, cy]))
         glyphs = [g.transform(1.0, center) for g in glyphs]

@@ -4,7 +4,7 @@ The Application-framework port of the reference showcase's window-event
 camera (examples/showcase/main.rs:255-274): cursor drag orbits the
 scene (a rotor accumulated from pointer deltas), the wheel zooms
 (view distance), and a resize rebuilds the per-resolution frame
-program.  On a TPU host the events come from a script instead of winit;
+program.  On a headless host the events come from a script instead of winit;
 the handlers are the same shape.
 
 Camera motion re-bins every frame, so the app renders through the
@@ -26,9 +26,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
 
-from contrast_renderer_tpu.app import Application, FrameLoop, PngSink  # noqa: E402
-from contrast_renderer_tpu.models import showcase  # noqa: E402
-from contrast_renderer_tpu.utils.matrix import (  # noqa: E402
+from contrast_renderer.app import Application, FrameLoop, PngSink  # noqa: E402
+from contrast_renderer.models import showcase  # noqa: E402
+from contrast_renderer.utils.matrix import (  # noqa: E402
     _quat_mul,
     rotate_around_axis,
 )

@@ -1,7 +1,7 @@
 """Frame driver: render the showcase scene to PNG frames with the
 reference's rolling-average frame timing.
 
-The TPU-host replacement for the reference's winit window loop
+The headless replacement for the reference's winit window loop
 (examples/application_framework.rs:236-263): instead of presenting to a
 surface, frames are written as PNGs, and the per-frame time plus a
 64-frame rolling average is logged exactly as
@@ -21,10 +21,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
 
-from contrast_renderer_tpu.models import showcase  # noqa: E402
-from contrast_renderer_tpu.renderer import Configuration, Renderer  # noqa: E402
-from contrast_renderer_tpu.utils.png import write_png  # noqa: E402
-from contrast_renderer_tpu.utils.profiling import FrameTimer  # noqa: E402
+from contrast_renderer.models import showcase  # noqa: E402
+from contrast_renderer.renderer import Configuration, Renderer  # noqa: E402
+from contrast_renderer.utils.png import write_png  # noqa: E402
+from contrast_renderer.utils.profiling import FrameTimer  # noqa: E402
 
 
 def main():

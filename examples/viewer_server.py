@@ -1,6 +1,6 @@
 """Live browser viewer: orbit the showcase against the real chip.
 
-The TPU-native equivalent of the reference's in-browser presentation
+The equivalent of the reference's in-browser presentation
 surface (examples/showcase/index.html:7-11 canvas + module loader,
 server.js:15-38 dev server, examples/showcase/main.rs:255-274 mouse
 orbit/zoom): a stdlib HTTP server renders frames on demand through the
@@ -18,7 +18,7 @@ server-side, so the canvas blit is a raw putImageData.
 Usage:
     python examples/viewer_server.py [--size WxH] [--port 8080]
                                      [--no-text]
-then open http://localhost:8080/ (port-forward from the TPU host).
+then open http://localhost:8080/.
 """
 
 import argparse
@@ -38,7 +38,7 @@ import numpy as np  # noqa: E402
 
 PAGE = """<!DOCTYPE html>
 <html>
-<head><meta charset="utf-8"><title>contrast_renderer_tpu — showcase</title>
+<head><meta charset="utf-8"><title>contrast_renderer — showcase</title>
 <style>
  body { margin: 0; background: #222; color: #ddd;
         font: 13px system-ui, sans-serif; }
@@ -100,8 +100,8 @@ class ShowcaseSession:
     main.rs:255-274)."""
 
     def __init__(self, width, height, with_text=True, scout_frames=16):
-        from contrast_renderer_tpu.models import showcase
-        from contrast_renderer_tpu.renderer import Configuration, Renderer
+        from contrast_renderer.models import showcase
+        from contrast_renderer.renderer import Configuration, Renderer
 
         self.width, self.height = width, height
         self.showcase = showcase
@@ -132,7 +132,7 @@ class ShowcaseSession:
         self._lock = threading.Lock()
 
     def _transforms(self, yaw, pitch, dist):
-        from contrast_renderer_tpu.utils.matrix import (
+        from contrast_renderer.utils.matrix import (
             _quat_mul, rotate_around_axis)
 
         rotor = _quat_mul(
@@ -236,7 +236,7 @@ def main():
     server = ThreadingHTTPServer(
         ("0.0.0.0", args.port), make_handler(session)
     )
-    log.info("open http://localhost:%d/ (forward the port if remote)",
+    log.info("open http://localhost:%d/",
              args.port)
     server.serve_forever()
 

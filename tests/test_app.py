@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu.app import Application, CollectSink, FrameLoop
-from contrast_renderer_tpu.path import Path
-from contrast_renderer_tpu.renderer import (
+from contrast_renderer.app import Application, CollectSink, FrameLoop
+from contrast_renderer.path import Path
+from contrast_renderer.renderer import (
     DrawCommand,
     RenderOperation,
     Shape,
@@ -103,7 +103,7 @@ class TestFrameLoop:
 
 class TestViewerServer:
     """The live-browser presentation surface (examples/viewer_server.py)
-    — the TPU-native analogue of the reference's index.html + server.js
+    — the analogue of the reference's index.html + server.js
     WASM hosting (component #16): page served, raw-RGBA frames rendered
     per camera state over HTTP."""
 

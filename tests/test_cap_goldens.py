@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from contrast_renderer_tpu.path import (
+from contrast_renderer.path import (
     Cap,
     DynamicStrokeOptions,
     Join,
@@ -22,7 +22,7 @@ from contrast_renderer_tpu.path import (
     Path,
     StrokeOptions,
 )
-from contrast_renderer_tpu.renderer import (
+from contrast_renderer.renderer import (
     Configuration,
     DrawCommand,
     RenderOperation,
@@ -89,7 +89,7 @@ def test_cap_styles_match_golden():
     want = np.load(GOLDEN)
     assert alpha.shape == want.shape
     # Bit-exact: the predicates are deterministic f32 arithmetic shared
-    # between CPU-interpret and TPU runs (per-sample match held on all
+    # between runs of the same backend (per-sample match held on all
     # prior goldens).
     mismatch = np.abs(alpha - want)
     assert mismatch.max() == 0.0, f"max deviation {mismatch.max()}"

@@ -22,9 +22,9 @@ from fontTools.pens.recordingPen import RecordingPen
 from fontTools.pens.t2CharStringPen import T2CharStringPen
 from fontTools.ttLib import TTFont
 
-from contrast_renderer_tpu.error import UnsupportedFontFormat
-from contrast_renderer_tpu.text import Font, paths_of_glyph
-from contrast_renderer_tpu.ttf import Face
+from contrast_renderer.error import UnsupportedFontFormat
+from contrast_renderer.text import Font, paths_of_glyph
+from contrast_renderer.ttf import Face
 
 PYGAME_OTF = (
     "/opt/venv/lib/python3.12/site-packages/pygame/tests/fixtures/"
@@ -281,7 +281,7 @@ class TestCFFOutlines:
     def test_arithmetic_and_storage_operators(self):
         """Direct interpreter test of the Type 2 arithmetic, storage and
         conditional escape operators (TN #5177 §4.4-4.5)."""
-        from contrast_renderer_tpu.cff import _Type2Interp
+        from contrast_renderer.cff import _Type2Interp
 
         def esc(b1):
             return bytes((12, b1))

@@ -5,12 +5,12 @@ analytic (polyline) ground truth rather than the scalar oracle."""
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu.path import (
+from contrast_renderer.path import (
     IntegralCubicCurveSegment,
     LineSegment,
     Path,
 )
-from contrast_renderer_tpu.renderer import (
+from contrast_renderer.renderer import (
     Configuration,
     DrawCommand,
     RenderOperation,
@@ -202,12 +202,12 @@ class TestGoldenImage:
         # Whole-pipeline regression gate: the full showcase (fills +
         # dashed strokes + text + instancing + perspective) against a
         # stored render.  Tolerances absorb backend-boundary sample
-        # flips (the golden was rendered on TPU).
+        # flips between backends.
         import os
 
-        from contrast_renderer_tpu.assets import font_path
-        from contrast_renderer_tpu.models import showcase
-        from contrast_renderer_tpu.utils.png import read_png
+        from contrast_renderer.assets import font_path
+        from contrast_renderer.models import showcase
+        from contrast_renderer.utils.png import read_png
 
         golden_path = os.path.join(
             os.path.dirname(__file__), "golden", "showcase_192x108.png"
@@ -271,9 +271,9 @@ class TestShapeReuse:
 
 class TestCopyAffine:
     def test_matches_motor_transform(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             IntegralQuadraticCurveSegment, StrokeOptions)
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         p = Path(start=(1.0, 2.0))
         p.push_line(LineSegment([(5.0, 2.0)]))
@@ -315,7 +315,7 @@ class TestResize:
 
 class TestFrameTimer:
     def test_rolling_average(self):
-        from contrast_renderer_tpu.utils.profiling import FrameTimer
+        from contrast_renderer.utils.profiling import FrameTimer
 
         timer = FrameTimer(window=4)
         for _ in range(6):
@@ -434,127 +434,17 @@ class TestCubicGroundTruth:
             assert mismatch < 5e-3, (name, orient, mismatch)
 
 
-class TestStreamedDrawTables:
-    """The large-frame draw-table layout (FrameSpec.stream_draws): per-
-    draw payloads concatenate into ONE VMEM array instead of SMEM
-    tables, which overflow at a few hundred draws on real TPU (the
-    reference streams instance attributes from storage buffers for the
-    same scaling reason, renderer.rs:462-466).  Both layouts must be
-    pixel-identical; the threshold must pick streaming for
-    many-instance frames; absurd draw counts raise the typed error."""
-
-    def _commands(self, size):
-        from contrast_renderer_tpu.renderer import (
-            LinearGradient, UserPaint)
-
-        disc = Shape([Path.from_circle((16, 16), 12)])
-        rect = Shape([Path.from_rect((16, 16), (10, 10))])
-        grad = LinearGradient(
-            start=(4.0, 16.0), end=(28.0, 16.0),
-            color0=(1.0, 0.0, 0.0, 1.0), color1=(0.0, 0.0, 1.0, 0.5),
-        )
-
-        def checker(px, py, anchor):
-            import jax.numpy as jnp
-
-            c = ((px // 4).astype(jnp.int32)
-                 + (py // 4).astype(jnp.int32)) % 2
-            c = c.astype(jnp.float32)
-            return c, 1.0 - c, c, jnp.full_like(c, 0.8)
-
-        def t(ox, oy):
-            m = np.diag(
-                [2.0 / size, 2.0 / size, 1.0, 1.0]
-            ).astype(np.float32)
-            m[0, 3] = -1.0 + 2.0 * ox / size
-            m[1, 3] = -1.0 + 2.0 * oy / size
-            return m
-
-        # Gradient + user-paint + solid + an instanced pair: exercises
-        # every per-draw column family (color/stops, paint_xy, zplane
-        # via the depth config below, hull boundary lines).
-        stacked = np.stack([t(0, 0), t(24, 24)])
-        return [
-            DrawCommand(RenderOperation.STENCIL, disc, t(4, 4)),
-            DrawCommand(
-                RenderOperation.COLOR, disc, t(4, 4), color=grad
-            ),
-            DrawCommand(RenderOperation.STENCIL, rect, stacked),
-            DrawCommand(
-                RenderOperation.COLOR, rect, stacked,
-                color=(0.2, 0.9, 0.4, 0.7),
-            ),
-            DrawCommand(RenderOperation.STENCIL, disc, t(20, 2)),
-            DrawCommand(
-                RenderOperation.COLOR, disc, t(20, 2),
-                color=UserPaint(checker),
-            ),
-        ]
-
-    def test_streamed_matches_smem_layout(self):
-        size = 64
-        config = Configuration(
-            depth_compare="less_equal", depth_write_enabled=True
-        )
-        images = {}
-        for stream in (False, True):
-            renderer = Renderer(
-                config, size, size, stream_draws=stream,
-                auto_instance=False,
-            )
-            images[stream] = renderer.render(self._commands(size))
-            spec = next(iter(renderer._executors))
-            assert spec.stream_draws is stream
-        assert np.array_equal(images[False], images[True])
-        assert images[True][..., 3].max() > 0.5
-
-    @pytest.mark.slow  # heavy compile/exec; smoke coverage stays in the fast gate
-    def test_auto_threshold_streams_many_instances(self):
-        # 600 cover draws push the SMEM estimate past the budget; the
-        # auto layout must pick streaming and still render correctly.
-        # The decision is internal to make_rasterize; mirror its
-        # arithmetic here so a threshold change updates this test.
-        C = 2
-        assert (3 * 1 + C) * 512 <= (1 << 19)          # small: SMEM
-        assert (3 * 600 + C) * 512 > (1 << 19)         # big: streams
-        size = 96
-        disc = Shape([Path.from_circle((4.0, 4.0), 3.0)])
-        rng = np.random.default_rng(7)
-        stack = []
-        for _ in range(600):
-            m = np.diag(
-                [2.0 / size, 2.0 / size, 1.0, 1.0]
-            ).astype(np.float32)
-            m[0, 3] = -1.0 + 2.0 * rng.uniform(0, size - 8) / size
-            m[1, 3] = -1.0 + 2.0 * rng.uniform(0, size - 8) / size
-            stack.append(m)
-        stack = np.stack(stack)
-        commands = [
-            DrawCommand(RenderOperation.STENCIL, disc, stack),
-            DrawCommand(
-                RenderOperation.COLOR, disc, stack,
-                color=(1.0, 1.0, 1.0, 1.0),
-            ),
-        ]
-        auto = Renderer(
-            Configuration(msaa_sample_count=1), size, size,
-            auto_instance=False,
-        )
-        image = auto.render(commands)
-        spec = next(iter(auto._executors))
-        assert spec.stream_draws is None  # auto decision, made inside
-        forced = Renderer(
-            Configuration(msaa_sample_count=1), size, size,
-            stream_draws=False, auto_instance=False,
-        )
-        assert np.array_equal(image, forced.render(commands))
+class TestFrameLimits:
+    """The raster kernel's real limit: per-tile tables indexed by int32
+    (tiles × commands, tiles × cover draws); past it the frame raises
+    the typed error before anything compiles."""
 
     def test_frame_too_complex_typed_error(self):
-        from contrast_renderer_tpu.error import FrameTooComplex
-        from contrast_renderer_tpu.ops import coverage
+        from contrast_renderer.error import FrameTooComplex
+        from contrast_renderer.ops import coverage
 
         spec = coverage.FrameSpec(
-            width=64, height=64, ops=(0, 3), cmd_shape=(0, 0),
+            width=16384, height=16384, ops=(0, 3), cmd_shape=(0, 0),
             cmd_inst=(40000, 40000), n_shapes=1, t_max=8, h_max=8,
             samples=1, winding_bits=4, n_layers=0,
             blending="back_to_front",

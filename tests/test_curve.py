@@ -5,8 +5,8 @@ import math
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import curve
-from contrast_renderer_tpu.utils import ga2d
+from contrast_renderer import curve
+from contrast_renderer.utils import ga2d
 
 
 def cps(*pts):
@@ -284,12 +284,12 @@ class TestUniformArcLength:
         """Samples of a rational-quadratic quarter circle are evenly
         spaced in arc length (the approximation the reference plans at
         path.rs:162-166)."""
-        from contrast_renderer_tpu.curve import (
+        from contrast_renderer.curve import (
             rational_quadratic_control_points_to_power_basis,
             rational_quadratic_point,
             uniform_arc_length_parameters,
         )
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         w = 1.0 / math.sqrt(2.0)
         cps = np.stack([
@@ -316,12 +316,12 @@ class TestUniformArcLength:
             assert abs(np.linalg.norm(p) - 1.0) < 1e-3
 
     def test_short_curve_single_parameter(self):
-        from contrast_renderer_tpu.curve import (
+        from contrast_renderer.curve import (
             rational_quadratic_control_points_to_power_basis,
             rational_quadratic_point,
             uniform_arc_length_parameters,
         )
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         cps = np.stack([
             ga2d.vec_to_point((0.0, 0.0)),
@@ -334,9 +334,9 @@ class TestUniformArcLength:
         ) == [1.0]
 
     def test_stroke_builder_accepts_arc_length(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             CurveApproximation, Path, StrokeOptions)
-        from contrast_renderer_tpu.stroke import StrokeBuilder
+        from contrast_renderer.stroke import StrokeBuilder
 
         p = Path.from_circle((0.0, 0.0), 5.0)
         p.stroke_options = StrokeOptions(

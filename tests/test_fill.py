@@ -8,9 +8,9 @@ import math
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.fill import FillBuilder
-from contrast_renderer_tpu.path import (
+from contrast_renderer import oracle
+from contrast_renderer.fill import FillBuilder
+from contrast_renderer.path import (
     IntegralCubicCurveSegment,
     IntegralQuadraticCurveSegment,
     LineSegment,
@@ -242,7 +242,7 @@ class TestOuterPolygon:
         """The decimated cover polygon contains the hull with bounded
         area overshoot (cover regions may be supersets — painting is
         winding-gated)."""
-        from contrast_renderer_tpu.convex_hull import andrew, outer_polygon
+        from contrast_renderer.convex_hull import andrew, outer_polygon
 
         rng = np.random.default_rng(0)
 
@@ -266,7 +266,7 @@ class TestOuterPolygon:
                 assert area(poly) <= area(hull) * 1.30
 
     def test_small_hulls_unchanged(self):
-        from contrast_renderer_tpu.convex_hull import outer_polygon
+        from contrast_renderer.convex_hull import outer_polygon
 
         tri = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
         assert np.array_equal(outer_polygon(tri, 16), tri)
@@ -275,7 +275,7 @@ class TestOuterPolygon:
 class TestHullPrefilter:
     def test_large_input_prune_matches_unpruned_chain(self):
         """The >1024-point interior prune must not change the hull."""
-        from contrast_renderer_tpu.convex_hull import andrew
+        from contrast_renderer.convex_hull import andrew
 
         rng = np.random.default_rng(7)
         for scale in (1.0, 300.0):

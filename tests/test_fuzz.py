@@ -11,14 +11,14 @@ per scene keeps a single compiled frame program.
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.path import (
+from contrast_renderer import oracle
+from contrast_renderer.path import (
     IntegralCubicCurveSegment,
     IntegralQuadraticCurveSegment,
     LineSegment,
     Path,
 )
-from contrast_renderer_tpu.renderer import (
+from contrast_renderer.renderer import (
     Configuration,
     DrawCommand,
     RenderOperation,
@@ -252,7 +252,7 @@ class TestFuzzStrokes:
     deviates there); everything else must match exactly."""
 
     def test_random_strokes_match_distance_oracle(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             Cap,
             CurveApproximation,
             DynamicStrokeOptions,
@@ -384,7 +384,7 @@ class TestFuzzClipAlpha:
                 Path.from_regular_polygon((cx, cy), r, rng.uniform(0, 3), 5)
             ]
 
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             LinearGradient,
             RadialGradient,
             _paint_kind,
@@ -608,7 +608,7 @@ class TestFuzzBlendStates:
         return out
 
     def test_every_factor_matches_oracle(self):
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BLEND_FACTORS,
             BlendComponent,
             BlendState,
@@ -716,7 +716,7 @@ def _cap_region(x, y, cap):
     """Cap shapes in width units: x side in [-0.5, 0.5], y distance
     beyond the dash/stroke end (reference shaders.wgsl:165-189; SQUARE
     uses the documented rectangle, see dynamic_stroke.py docstring)."""
-    from contrast_renderer_tpu.path import Cap
+    from contrast_renderer.path import Cap
 
     ax = np.abs(x)
     if cap == Cap.SQUARE:
@@ -753,7 +753,7 @@ def _point_in_polygon(flat, poly):
 def _join_polygon(c, d0, d1, w, join, miter_clip):
     """The joint region at vertex c between directions d0 -> d1
     (first-principles reconstruction of stroke.rs:53-121's polygon)."""
-    from contrast_renderer_tpu.path import Join
+    from contrast_renderer.path import Join
 
     cross = d0[0] * d1[1] - d0[1] * d1[0]
     side_sign = 1.0 if cross >= 0.0 else -1.0
@@ -842,7 +842,7 @@ class TestFuzzJoins:
     rectangle-union + joint-polygon region."""
 
     def test_miter_and_bevel_joins_match_polygon_oracle(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             Cap,
             DynamicStrokeOptions,
             Join,
@@ -923,7 +923,7 @@ class TestFuzzCaps:
     rectangle + analytic cap region (shaders.wgsl:165-189)."""
 
     def test_all_caps_match_region_oracle(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             Cap,
             DynamicStrokeOptions,
             Join,
@@ -995,7 +995,7 @@ class TestFuzzDash:
     modular region (shaders.wgsl:205-231)."""
 
     def test_random_dash_patterns_match_oracle(self):
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             Cap,
             DashInterval,
             DynamicStrokeOptions,

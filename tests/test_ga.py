@@ -7,7 +7,7 @@ reference relies on (src/utils.rs, src/safe_float.rs conventions).
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu.utils import ga2d, ga3d, matrix
+from contrast_renderer.utils import ga2d, ga3d, matrix
 
 
 class TestPointsLines:

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import curve as curvemod
-from contrast_renderer_tpu import native
-from contrast_renderer_tpu.convex_hull import andrew
-from contrast_renderer_tpu.utils import ga2d
+from contrast_renderer import curve as curvemod
+from contrast_renderer import native
+from contrast_renderer.convex_hull import andrew
+from contrast_renderer.utils import ga2d
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no C++ toolchain"
@@ -63,8 +63,8 @@ def test_convex_hull_matches_python():
 
 
 def test_tessellate_quadratic_paths_matches_fill_builder():
-    from contrast_renderer_tpu.fill import FillBuilder
-    from contrast_renderer_tpu.path import (
+    from contrast_renderer.fill import FillBuilder
+    from contrast_renderer.path import (
         IntegralQuadraticCurveSegment,
         LineSegment,
         Path,

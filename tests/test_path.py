@@ -5,8 +5,8 @@ import math
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import path as pathmod
-from contrast_renderer_tpu.path import (
+from contrast_renderer import path as pathmod
+from contrast_renderer.path import (
     CurveApproximation,
     IntegralCubicCurveSegment,
     IntegralQuadraticCurveSegment,
@@ -17,7 +17,7 @@ from contrast_renderer_tpu.path import (
     SegmentType,
     StrokeOptions,
 )
-from contrast_renderer_tpu.utils import ga2d
+from contrast_renderer.utils import ga2d
 
 
 def rational_quadratic_eval(p0, p1, p2, w, t):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from contrast_renderer_tpu.utils import polynomial as poly
+from contrast_renderer.utils import polynomial as poly
 
 EPS = 1e-4
 

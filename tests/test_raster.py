@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.fill import FillBuilder
-from contrast_renderer_tpu.ops import raster
-from contrast_renderer_tpu.path import (
+from contrast_renderer import oracle
+from contrast_renderer.fill import FillBuilder
+from contrast_renderer.ops import raster
+from contrast_renderer.path import (
     IntegralCubicCurveSegment,
     LineSegment,
     Path,

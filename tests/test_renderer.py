@@ -6,8 +6,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.path import (
+from contrast_renderer import oracle
+from contrast_renderer.path import (
     Cap,
     DashInterval,
     DynamicStrokeOptions,
@@ -16,7 +16,7 @@ from contrast_renderer_tpu.path import (
     Path,
     StrokeOptions,
 )
-from contrast_renderer_tpu.renderer import (
+from contrast_renderer.renderer import (
     Configuration,
     DrawCommand,
     RenderOperation,
@@ -145,7 +145,7 @@ class TestClipping:
         assert np.mean(np.abs(green - attenuated)) < 5e-3
 
     def test_clip_depth_overflow_raises(self):
-        from contrast_renderer_tpu.error import ClipStackOverflow
+        from contrast_renderer.error import ClipStackOverflow
 
         renderer = Renderer(
             Configuration(clip_nesting_counter_bits=1), SIZE, SIZE
@@ -424,7 +424,7 @@ class TestKernelSpecializations:
         """An explicit BlendState spelling of premultiplied OVER renders
         identically to the "back_to_front" shorthand (the generic wgpu
         blend path, reference renderer.rs:381)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -452,7 +452,7 @@ class TestKernelSpecializations:
         """color src·dst_alpha + dst with alpha src·1 + dst·0: color
         only lands where prior draws left alpha, and the dst_alpha
         factor reads the pre-draw destination (wgpu ordering)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -482,7 +482,7 @@ class TestKernelSpecializations:
     def test_custom_blend_max_ignores_factors(self):
         """`max` keeps the channel-wise maximum regardless of factors
         (wgpu: min/max ignore blend factors)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -508,7 +508,7 @@ class TestKernelSpecializations:
         """``constant`` reads the runtime blend-constant color
         (wgpu set_blend_constant); updating it re-renders without a
         recompile (completing wgpu::BlendFactor, renderer.rs:381)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -538,7 +538,7 @@ class TestKernelSpecializations:
         compiled FrameProgram must honor per-frame constant updates
         without a rebuild or retrace (renderer.rs:381 +
         RenderPass::set_blend_constant)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -566,7 +566,7 @@ class TestKernelSpecializations:
         assert len(r._executors) == build_count
 
     def test_one_minus_constant_blend_factor(self):
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -588,7 +588,7 @@ class TestKernelSpecializations:
     def test_src_alpha_saturated_blend_factor(self):
         """``src_alpha_saturated``: min(αs, 1−αd) on RGB, 1 on alpha —
         the classic saturating accumulation (wgpu::BlendFactor)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             BlendComponent,
             BlendState,
         )
@@ -745,7 +745,7 @@ class TestDepth:
         uses the showcase's transforms on a solid fill of its rounded
         rect (the occlusion claim is about the camera/depth state, not
         the ink width)."""
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         solid = Shape(
@@ -904,7 +904,7 @@ class TestCarryProbe:
     def test_frame_program_carry(self):
         import jax.numpy as jnp
 
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         r = Renderer(Configuration(), size, size)
@@ -922,7 +922,7 @@ class TestCarryProbe:
         worst-case defaults — the dense per-tile materialization and
         the kernel's per-tile DMA blocks scale with this capacity
         every frame."""
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         r = Renderer(Configuration(), size, size)
@@ -938,7 +938,7 @@ class TestCarryProbe:
         """A scene that outgrows the shrunk-to-fit capacities triggers
         the deferred rebuild with grown program-local capacities
         (never clamped back down by the fit)."""
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         r = Renderer(Configuration(), size, size)
@@ -974,7 +974,7 @@ class TestCarryProbe:
         including under a moved camera and with a carry probe."""
         import jax.numpy as jnp
 
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         r = Renderer(Configuration(), size, size)
@@ -1005,7 +1005,7 @@ class TestCarryProbe:
         presentation route) — bit-identical to quantizing the float
         render; shares the prepared (binning) cache with the float
         path; composes with the carry probe; rejects background."""
-        from contrast_renderer_tpu.models import showcase
+        from contrast_renderer.models import showcase
 
         size = 64
         r = Renderer(Configuration(), size, size)
@@ -1066,8 +1066,8 @@ class TestSaveScaleFusion:
         ]
 
     def test_optimizer_fuses_and_maps_rows(self):
-        from contrast_renderer_tpu.ops import coverage
-        from contrast_renderer_tpu.renderer import _optimize_commands
+        from contrast_renderer.ops import coverage
+        from contrast_renderer.renderer import _optimize_commands
 
         rect, cover_all = self._shapes()
         commands = self._group_commands(rect, cover_all, 0.5)
@@ -1135,12 +1135,12 @@ class TestSaveScaleFusion:
 
 @pytest.mark.slow  # fast gate keeps one compile per feature area; full battery in CI device-slow
 class TestGradientPaints:
-    """Two-stop linear/radial gradient paints (TPU-native extension:
+    """Two-stop linear/radial gradient paints (extension:
     the reference's color cover is solid-only, shaders.wgsl:304-309).
     Validated per MSAA sample against the analytic interpolation."""
 
     def test_linear_gradient_matches_analytic(self, renderer):
-        from contrast_renderer_tpu.renderer import LinearGradient
+        from contrast_renderer.renderer import LinearGradient
 
         rect = Shape([Path.from_rect((32, 32), (24, 24))])
         paint = LinearGradient(
@@ -1173,7 +1173,7 @@ class TestGradientPaints:
         assert np.abs(image - want.mean(axis=2)).max() < 1e-4
 
     def test_radial_gradient_matches_analytic(self, renderer):
-        from contrast_renderer_tpu.renderer import RadialGradient
+        from contrast_renderer.renderer import RadialGradient
 
         disc = Shape([Path.from_circle((32.0, 32.0), 24.0)])
         paint = RadialGradient(
@@ -1204,13 +1204,13 @@ class TestGradientPaints:
     def test_gradient_on_stroke(self, renderer):
         """Gradients apply to stroked shapes through the same COLOR
         cover (stroke coverage is winding like fills)."""
-        from contrast_renderer_tpu.path import (
+        from contrast_renderer.path import (
             Cap,
             Join,
             LineSegment,
             StrokeOptions,
         )
-        from contrast_renderer_tpu.renderer import LinearGradient
+        from contrast_renderer.renderer import LinearGradient
 
         p = Path(start=(8, 32), stroke_options=StrokeOptions(width=8.0))
         p.push_line(LineSegment([(56, 32)]))
@@ -1241,7 +1241,7 @@ class TestGradientPaints:
         """One instanced command with a gradient paint: each instance's
         endpoints project through its own transform, so every copy
         carries its own gradient."""
-        from contrast_renderer_tpu.renderer import LinearGradient
+        from contrast_renderer.renderer import LinearGradient
 
         rect = Shape([Path.from_rect((16, 16), (10, 10))])
         paint = LinearGradient(
@@ -1269,7 +1269,7 @@ class TestGradientPaints:
     def test_frame_program_gradient_tracks_camera(self, renderer):
         """The gradient endpoints ride the per-frame transform stack:
         translating the draw moves the gradient with it."""
-        from contrast_renderer_tpu.renderer import LinearGradient
+        from contrast_renderer.renderer import LinearGradient
 
         rect = Shape([Path.from_rect((32, 32), (16, 16))])
         paint = LinearGradient(
@@ -1293,7 +1293,7 @@ class TestGradientPaints:
         )
 
     def test_multi_stop_linear_gradient(self, renderer):
-        from contrast_renderer_tpu.renderer import LinearGradient
+        from contrast_renderer.renderer import LinearGradient
 
         rect = Shape([Path.from_rect((32, 32), (28, 20))])
         stops = (
@@ -1349,7 +1349,7 @@ class TestUserPaint:
     def test_checkerboard_matches_oracle(self, renderer):
         import jax.numpy as jnp
 
-        from contrast_renderer_tpu.renderer import UserPaint
+        from contrast_renderer.renderer import UserPaint
 
         def checker(px, py, anchor):
             c = ((jnp.floor(px / 8.0) + jnp.floor(py / 8.0)) % 2.0)
@@ -1382,7 +1382,7 @@ class TestUserPaint:
         same per-sample math)."""
         import jax.numpy as jnp
 
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             LinearGradient, UserPaint)
 
         c0 = (1.0, 0.0, 0.0, 1.0)
@@ -1426,7 +1426,7 @@ class TestUserPaint:
     def test_two_distinct_fns_in_one_frame(self, renderer):
         import jax.numpy as jnp
 
-        from contrast_renderer_tpu.renderer import UserPaint
+        from contrast_renderer.renderer import UserPaint
 
         def solid_red(px, py, anchor):
             one = jnp.ones_like(px)
@@ -1496,7 +1496,7 @@ class TestRenderSequence:
         """Instanced SAVE+SCALE stays unfused: with overlapping
         instance covers the unfused sequence snapshots ALL pre-scale
         alpha before any scaling; fusing would interleave per instance."""
-        from contrast_renderer_tpu.renderer import _optimize_commands
+        from contrast_renderer.renderer import _optimize_commands
 
         cover = Shape([Path.from_rect((32, 32), (32, 32))])
         stacked = np.stack([ortho(), translate(4, 0)])
@@ -1517,7 +1517,7 @@ class TestRenderSequence:
 @pytest.mark.slow  # fast gate keeps one compile per feature area; full battery in CI device-slow
 class TestSrgbOutput:
     def test_srgb_quantization_matches_host_conversion(self, renderer):
-        from contrast_renderer_tpu.utils.color import linear_to_srgb
+        from contrast_renderer.utils.color import linear_to_srgb
 
         shape = Shape([Path.from_rect((32, 32), (20, 20))])
         commands = stencil_color(shape, ortho(), (0.2, 0.5, 0.8, 1.0))
@@ -1556,7 +1556,7 @@ class TestAutoInstancing:
         )
 
     def test_disjoint_grid_fuses_and_matches(self):
-        from contrast_renderer_tpu.renderer import _fuse_instance_runs
+        from contrast_renderer.renderer import _fuse_instance_runs
 
         shape = Shape([Path.from_circle((6.0, 6.0), 5.0)])
         commands = []
@@ -1576,7 +1576,7 @@ class TestAutoInstancing:
         """Translucent overlapping instances expose any compositing
         difference; the greedy grouping must keep overlap-ordered
         pairs in separate groups and stay bitwise equal."""
-        from contrast_renderer_tpu.renderer import _fuse_instance_runs
+        from contrast_renderer.renderer import _fuse_instance_runs
 
         shape = Shape([Path.from_circle((8.0, 8.0), 7.0)])
         offsets = [
@@ -1598,8 +1598,8 @@ class TestAutoInstancing:
         assert np.array_equal(seq_img, fused_img)
 
     def test_showcase_scene_fuses_pixel_exact(self):
-        from contrast_renderer_tpu.models import showcase
-        from contrast_renderer_tpu.renderer import _fuse_instance_runs
+        from contrast_renderer.models import showcase
+        from contrast_renderer.renderer import _fuse_instance_runs
 
         shape = showcase.build_shape(with_text=False)
         commands = showcase.showcase_commands(shape, SIZE, SIZE)
@@ -1609,7 +1609,7 @@ class TestAutoInstancing:
         assert np.array_equal(seq_img, fused_img)
 
     def test_near_plane_crossing_never_fuses(self):
-        from contrast_renderer_tpu.renderer import _fuse_instance_runs
+        from contrast_renderer.renderer import _fuse_instance_runs
 
         shape = Shape([Path.from_circle((0.0, 0.0), 1.0)])
         behind = np.eye(4, dtype=np.float32)
@@ -1624,7 +1624,7 @@ class TestAutoInstancing:
 
     def test_mixed_state_breaks_runs(self):
         """A clip-depth change (or shape change) ends the fusable run."""
-        from contrast_renderer_tpu.renderer import _fuse_instance_runs
+        from contrast_renderer.renderer import _fuse_instance_runs
 
         a = Shape([Path.from_circle((6.0, 6.0), 5.0)])
         b = Shape([Path.from_rect((6.0, 6.0), (4.0, 4.0))])
@@ -2012,7 +2012,7 @@ class TestBracketGating:
         ]
 
     def _render_both(self, commands, monkeypatch):
-        from contrast_renderer_tpu import renderer as renderer_mod
+        from contrast_renderer import renderer as renderer_mod
 
         config = Configuration(
             alpha_layer_count=1, blending="front_to_back"
@@ -2026,7 +2026,7 @@ class TestBracketGating:
 
     def test_gated_bracket_matches_ungated(self, monkeypatch):
         commands = self._scene()
-        from contrast_renderer_tpu import renderer as renderer_mod
+        from contrast_renderer import renderer as renderer_mod
 
         r = Renderer(
             Configuration(alpha_layer_count=1, blending="front_to_back"),
@@ -2068,7 +2068,7 @@ class TestBracketGating:
         assert np.array_equal(gated, ungated)
 
     def _spec_of(self, commands):
-        from contrast_renderer_tpu import renderer as renderer_mod
+        from contrast_renderer import renderer as renderer_mod
 
         r = Renderer(
             Configuration(alpha_layer_count=1, blending="front_to_back"),

@@ -4,8 +4,8 @@ end, and the multi-chip band-sharded path produces the same image."""
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu.models import showcase
-from contrast_renderer_tpu.renderer import Configuration, Renderer
+from contrast_renderer.models import showcase
+from contrast_renderer.renderer import Configuration, Renderer
 
 
 @pytest.fixture(scope="module")
@@ -19,7 +19,7 @@ class TestShowcase:
     def test_full_shape_builds_with_text(self):
         import os
 
-        from contrast_renderer_tpu.assets import font_path
+        from contrast_renderer.assets import font_path
 
         if not os.path.exists(font_path()):
             pytest.skip("OpenSans test font unavailable")
@@ -145,10 +145,10 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded
+        from contrast_renderer.parallel import render_sharded
 
         # Explicit virtual-CPU mesh: the session default platform may be
-        # a single real TPU, which cannot host a multi-device mesh.
+        # a single GPU, which cannot host a multi-device mesh.
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
         assert n >= 2, "need multiple virtual CPU devices (XLA_FLAGS)"
@@ -173,7 +173,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import (
+        from contrast_renderer.parallel import (
             ShardedFrameProgram,
             render_sharded,
         )
@@ -207,7 +207,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import (
+        from contrast_renderer.parallel import (
             ShardedFrameProgram2D,
             render_sharded_2d,
         )
@@ -233,7 +233,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded
+        from contrast_renderer.parallel import render_sharded
 
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
@@ -263,8 +263,8 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.parallel import render_sharded
+        from contrast_renderer.renderer import (
             DrawCommand,
             RenderOperation,
         )
@@ -300,7 +300,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import ShardedFrameProgram
+        from contrast_renderer.parallel import ShardedFrameProgram
 
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
@@ -340,7 +340,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import ShardedFrameProgram
+        from contrast_renderer.parallel import ShardedFrameProgram
 
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
@@ -377,9 +377,9 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded
-        from contrast_renderer_tpu.path import Path
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.parallel import render_sharded
+        from contrast_renderer.path import Path
+        from contrast_renderer.renderer import (
             DrawCommand,
             RenderOperation,
             Shape,
@@ -430,7 +430,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import ShardedFrameProgram
+        from contrast_renderer.parallel import ShardedFrameProgram
 
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
@@ -458,7 +458,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded
+        from contrast_renderer.parallel import render_sharded
 
         cpu_devices = jax.devices("cpu")
         n = min(4, len(cpu_devices))
@@ -476,7 +476,7 @@ class TestMultiChip:
         import jax
         from jax.sharding import Mesh
 
-        from contrast_renderer_tpu.parallel import render_sharded_2d
+        from contrast_renderer.parallel import render_sharded_2d
 
         cpu_devices = jax.devices("cpu")
         assert len(cpu_devices) >= 4, "need 4 virtual CPU devices"

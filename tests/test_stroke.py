@@ -11,9 +11,9 @@ import math
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.dynamic_stroke import StrokeDescriptorTable
-from contrast_renderer_tpu.path import (
+from contrast_renderer import oracle
+from contrast_renderer.dynamic_stroke import StrokeDescriptorTable
+from contrast_renderer.path import (
     Cap,
     CurveApproximation,
     DashInterval,
@@ -23,7 +23,7 @@ from contrast_renderer_tpu.path import (
     Path,
     StrokeOptions,
 )
-from contrast_renderer_tpu.stroke import StrokeBuilder
+from contrast_renderer.stroke import StrokeBuilder
 
 SIZE = 96
 

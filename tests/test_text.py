@@ -7,9 +7,9 @@ data (the same fixture its showcase uses, examples/showcase/main.rs:10).
 import numpy as np
 import pytest
 
-from contrast_renderer_tpu import oracle
-from contrast_renderer_tpu.fill import FillBuilder
-from contrast_renderer_tpu.text import (
+from contrast_renderer import oracle
+from contrast_renderer.fill import FillBuilder
+from contrast_renderer.text import (
     Alignment,
     Font,
     Layout,
@@ -20,7 +20,7 @@ from contrast_renderer_tpu.text import (
     paths_of_text,
 )
 
-from contrast_renderer_tpu.assets import font_path
+from contrast_renderer.assets import font_path
 
 FONT_PATH = font_path()
 
@@ -88,7 +88,7 @@ class TestGlyphOutlines:
         paths = paths_of_glyph(face, face.glyph_index("O"))
         # Scale into a 64² raster.
         bbox = face.glyph_bounding_box(face.glyph_index("O"))
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         scale = 56.0 / face.units_per_em
         for p in paths:
@@ -140,7 +140,7 @@ class TestLayout:
         assert len(double) == 2 * len(single)
 
     def test_clipping_culls_glyphs(self, font):
-        from contrast_renderer_tpu.utils import ga2d
+        from contrast_renderer.utils import ga2d
 
         layout = Layout(size=2.0)
         clip = ga2d.aabb_to_convex_polygon([-100.0, -100.0, 100.0, 100.0])
@@ -196,8 +196,8 @@ class TestShapeOfText:
         comparison is order-invariant: per-coordinate sorted sequences
         of ε-close multisets are pointwise ε-close.
         """
-        from contrast_renderer_tpu.renderer import Shape
-        from contrast_renderer_tpu.text import shape_of_text
+        from contrast_renderer.renderer import Shape
+        from contrast_renderer.text import shape_of_text
 
         layout = Layout(
             size=20.0,
@@ -229,13 +229,13 @@ class TestShapeOfText:
         np.testing.assert_allclose(areas(ft), areas(ct), atol=2e-2)
         # Hulls: the fast hull must contain the classic hull (it is
         # built from per-glyph hulls, a superset of the proto-hull).
-        from contrast_renderer_tpu.convex_hull import andrew
+        from contrast_renderer.convex_hull import andrew
 
         both = andrew(np.concatenate([fast.convex_hull, classic.convex_hull]))
         assert len(both) <= len(fast.convex_hull) + len(classic.convex_hull)
 
     def test_cache_reused_across_calls(self, font):
-        from contrast_renderer_tpu.text import shape_of_text
+        from contrast_renderer.text import shape_of_text
 
         layout = Layout(size=12.0)
         a = shape_of_text(font.face, layout, "abcabc")
@@ -260,9 +260,9 @@ class TestTextCommands:
         )
 
     def test_matches_monolith_pixels(self, font):
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             Configuration, DrawCommand, RenderOperation, Renderer)
-        from contrast_renderer_tpu.text import shape_of_text, text_commands
+        from contrast_renderer.text import shape_of_text, text_commands
 
         layout = self._layout()
         text = "the quick brown fox\njumps over the lazy dog"
@@ -294,8 +294,8 @@ class TestTextCommands:
         assert sum(c.n_instances for c in stencils) == n_glyphs
 
     def test_glyph_shape_cached_and_instanced(self, font):
-        from contrast_renderer_tpu.renderer import RenderOperation
-        from contrast_renderer_tpu.text import glyph_shape, text_commands
+        from contrast_renderer.renderer import RenderOperation
+        from contrast_renderer.text import glyph_shape, text_commands
 
         layout = self._layout()
         t = np.diag(
@@ -320,9 +320,9 @@ class TestTextCommands:
         """The instanced command list must be pixel-exact against the
         fully-sequential per-instance walk even with translucent color
         (where an unsound grouping would double-blend overlap)."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             Configuration, DrawCommand, RenderOperation, Renderer)
-        from contrast_renderer_tpu.text import text_commands
+        from contrast_renderer.text import text_commands
 
         layout = self._layout(size=48.0)
         t = np.diag(
@@ -358,7 +358,7 @@ class TestTextCommands:
         assert np.array_equal(inst_img, seq_img)
 
     def test_flag_overlapping_boxes(self):
-        from contrast_renderer_tpu.text import _flag_overlapping_boxes
+        from contrast_renderer.text import _flag_overlapping_boxes
 
         boxes = np.array([
             [0.0, 0.0, 1.0, 1.0],     # overlaps #2
@@ -378,8 +378,8 @@ class TestTextCommands:
     def test_near_plane_instances_fall_back(self, font):
         """Instances whose projected hull crosses the near plane are
         emitted as sequential pairs (their boxes are undefined)."""
-        from contrast_renderer_tpu.renderer import RenderOperation
-        from contrast_renderer_tpu.text import text_commands
+        from contrast_renderer.renderer import RenderOperation
+        from contrast_renderer.text import text_commands
 
         layout = self._layout()
         behind = np.eye(4, dtype=np.float32)
@@ -401,7 +401,7 @@ class TestCmapLegacyFormats:
     def _parse(payload):
         import struct
 
-        from contrast_renderer_tpu import ttf
+        from contrast_renderer import ttf
 
         face = ttf.Face.__new__(ttf.Face)
         face.data = (
@@ -446,9 +446,9 @@ class TestTextCommandsFused:
         )
 
     def test_matches_monolith_pixels(self, font):
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             Configuration, DrawCommand, RenderOperation, Renderer)
-        from contrast_renderer_tpu.text import (
+        from contrast_renderer.text import (
             shape_of_text, text_commands_fused)
 
         layout = self._layout()
@@ -484,9 +484,9 @@ class TestTextCommandsFused:
         """Translucent text is where per-glyph covers diverge from the
         monolith (overlap double-paints); the fused form must match the
         monolith exactly even then."""
-        from contrast_renderer_tpu.renderer import (
+        from contrast_renderer.renderer import (
             Configuration, DrawCommand, RenderOperation, Renderer)
-        from contrast_renderer_tpu.text import (
+        from contrast_renderer.text import (
             shape_of_text, text_commands_fused)
 
         layout = self._layout(30.0)
